@@ -1,10 +1,10 @@
-"""optrace_tpu — a TPU-native differentiable sequential raytracer.
+"""optrace_tpu — a differentiable sequential raytracer in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 optics package (drocheam/optrace, see SURVEY.md): sequential Monte-Carlo
 raytracing, spectrally accurate detector-image rendering, paraxial (ABCD)
 analysis, PSF convolution, ZEMAX import, HURB edge diffraction — designed
-for sharded execution over TPU device meshes with full autodiff through
+for sharded execution over device meshes with full autodiff through
 surface, material and spectrum parameters.
 """
 

@@ -1,6 +1,6 @@
 """Axial focus metrics, evaluated as one vmapped device kernel.
 
-TPU-first replacement for the reference's focus-search cost sampling
+Device replacement for the reference's focus-search cost sampling
 (``optrace/tracer/raytracer.py:1354-1632``): where the reference evaluates
 320 z-positions one at a time through a thread pool, here every candidate
 plane is a lane of a single ``jax.vmap`` over the jitted cost function —

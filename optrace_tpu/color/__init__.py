@@ -1,6 +1,6 @@
 """Colorimetry: CIE observers, XYZ/xyY/CIELUV/sRGB conversions, illuminants.
 
-TPU-native rebuild of reference ``optrace/tracer/color/`` (SURVEY.md §2.3):
+Rebuild of reference ``optrace/tracer/color/`` (SURVEY.md §2.3):
 all conversions are pure jnp functions over arrays with the channel axis
 last, jit/vmap/grad-safe (branchless ``where`` instead of boolean-mask
 in-place assignment).

@@ -32,8 +32,8 @@ _OBS_PAD = np.pad(_OBS_XYZ, ((0, 0), (1, 1)))
 def _interp(wl, row: int):
     """Uniform-grid linear interpolation (1 nm steps): direct index
     arithmetic instead of jnp.interp's binary search — the observer lookup
-    sits on the per-ray hot path of detector binning, where searchsorted
-    costs ~50 ms per channel per megaray on TPU. Host inputs evaluate in
+    sits on the per-ray hot path of detector binning, where a binary
+    search per channel per ray is pure overhead. Host inputs evaluate in
     numpy (ops/xp.py) so spectrum presets and scene building never touch
     the device."""
     from ..ops.xp import get_xp

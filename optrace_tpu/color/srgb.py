@@ -1,6 +1,6 @@
 """sRGB conversions, gamut mapping (rendering intents), primary spectra.
 
-TPU-native rebuild of reference ``optrace/tracer/color/srgb.py`` (the color
+Rebuild of reference ``optrace/tracer/color/srgb.py`` (the color
 heart, SURVEY.md §2.3). Everything is branchless jnp over (..., 3) arrays so
 it can sit at the end of a jitted render pipeline.
 
@@ -81,8 +81,9 @@ def srgb_linear_to_srgb(rgbl: jnp.ndarray) -> jnp.ndarray:
 # linear transforms
 
 def _matmul_channels(mat, img: jnp.ndarray) -> jnp.ndarray:
-    # precision="highest": the default matmul precision uses bf16 passes on
-    # TPU, far too coarse for a 3x3 colorimetric transform
+    # precision="highest": the default f32 matmul precision may run reduced-
+    # precision passes (TF32 on the GPU), far too coarse for a 3x3
+    # colorimetric transform
     m = jnp.asarray(mat, dtype=img.dtype)
     return jnp.einsum("ij,...j->...i", m, img, precision="highest")
 
@@ -345,11 +346,10 @@ def random_wavelengths_from_srgb(key, rgb: jnp.ndarray) -> jnp.ndarray:
     make_b = choice > csum[:, 1]
 
     # same uniforms through all three inverse CDFs, selected per ray by a
-    # flattened channel index into ONE combined (M, 3) table: TPU gathers
-    # run at ~8 ns/element at 1e6 rays, so 2 gathers (y0, y1) instead of 6
-    # (two per primary) cut wavelength sampling from ~46 ms to ~16 ms/Mray.
-    # The interpolation math is unchanged — values are bit-identical to
-    # the three separate inverse_transform_from_u calls.
+    # flattened channel index into ONE combined (M, 3) table: 2 gathers
+    # (y0, y1) instead of 6 (two per primary). The interpolation math is
+    # unchanged — values are bit-identical to the three separate
+    # inverse_transform_from_u calls.
     u = sampling.stratified_interval_sampling(k2, N, 0.0, 1.0)
     M = 4096
     tabs = []
@@ -374,6 +374,9 @@ def power_from_srgb_linear(rgbl: jnp.ndarray) -> jnp.ndarray:
     xp = get_xp(rgbl)
     rgbl = xp.asarray(rgbl)
     w = xp.asarray(SRGB_PRIMARY_POWER_FACTORS, rgbl.dtype)
+    if xp is jnp:
+        # precision="highest": keep the f32 product out of TF32 on the GPU
+        return jnp.einsum("...c,c->...", rgbl, w, precision="highest")
     return xp.einsum("...c,c->...", rgbl, w)
 
 

@@ -153,7 +153,7 @@ class RaySource(Element):
                 cdf_np = (cdf_np / cdf_np[-1]).astype(np.float32)
                 # guide resolution ~4 cells per pixel: expected bracket
                 # width ≤ 1, so the refinement usually needs 1-2 gather
-                # rounds; each round is ~8 ms/Mray on TPU
+                # rounds
                 M = 1 << min(20, max(12, (4 * Iy * Ix - 1).bit_length()))
                 guide_np = np.searchsorted(
                     cdf_np, (np.arange(M + 1) / M).astype(np.float32),
@@ -161,7 +161,7 @@ class RaySource(Element):
                 n_iter = max(1, int(np.max(np.diff(guide_np)) + 1).bit_length())
                 cdf = jnp.asarray(cdf_np)
                 # (lo, hi) pairs in one row gather instead of two scattered
-                # table reads (gathers are ~8 ms/Mray on TPU)
+                # table reads
                 guide_pairs = jnp.asarray(
                     np.stack([guide_np[:-1], guide_np[1:]], axis=1))
                 u = sampling.stratified_interval_sampling(k_px, N, 0.0, 1.0)

@@ -1,7 +1,7 @@
 """User-defined surfaces from mathematical functions
 (reference function_surface_2d.py / function_surface_1d.py).
 
-For the surface to participate in the jitted TPU trace, ``func`` (and
+For the surface to participate in the jitted device trace, ``func`` (and
 ``deriv_func``/``mask_func`` if given) must be expressible with jnp
 operations. Plain numpy functions still work for the host-side API
 (values/plotting), and the trace falls back to calling them under jax's

@@ -6,7 +6,7 @@ Behavioral parity with reference
 ``plotting_mesh``/``flip``/``rotate``/``move_to``), C_EPS/N_EPS semantics,
 radial edge continuation, and "Broken sequentiality" bookkeeping.
 
-Design difference (TPU-native): all numerics delegate to the pure
+Design difference: all numerics delegate to the pure
 functions in :mod:`optrace_tpu.ops.geom`; the *same* functions are compiled
 into the sharded trace by the scene compiler, so the user-facing API and
 the jitted hot path cannot drift apart. The user API accepts and returns

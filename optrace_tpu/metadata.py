@@ -6,5 +6,5 @@ __version__ = version
 author = "optrace_tpu developers"
 license = "MIT"
 documentation = "README.md"
-description = ("TPU-native differentiable sequential raytracing, spectral "
-               "image rendering and optical analysis built on JAX/XLA/Pallas")
+description = ("Differentiable sequential raytracing, spectral "
+               "image rendering and optical analysis built on JAX/XLA")

@@ -1,8 +1,8 @@
 """Compute kernels: vector math, stateless sampling, intersection, binning.
 
-These are the TPU-native equivalents of the reference's vectorized-NumPy
+These are the device equivalents of the reference's vectorized-NumPy
 hot paths (SURVEY.md §2.2, §2.4, §2.6) — pure jax functions designed to be
-fused by XLA, with Pallas implementations for the hottest loops.
+fused by XLA.
 """
 
 from . import vector      # noqa: F401

@@ -1,7 +1,7 @@
 """Detector binning: scatter-add of observer-weighted ray hits into XYZW
 image tiles.
 
-TPU-native equivalent of reference ``misc.binning_indices_2d``
+Device equivalent of reference ``misc.binning_indices_2d``
 (misc.py:59-91) + the ``np.add.at`` scatter in RenderImage.render
 (render_image.py:394-418). Pure jnp; in the sharded render path each shard
 accumulates a local tile which is then ``psum``-merged (SURVEY.md §2.10).
@@ -40,7 +40,7 @@ def bin_xyzw(px, py, w, wl, Nx: int, Ny: int, extent) -> jnp.ndarray:
     """Accumulate rays into an (Ny, Nx, 4) image of X̄w, Ȳw, Z̄w, w.
 
     Observer weighting happens inline so wavelengths never need to be
-    stored; XLA lowers the scatter-add onto the TPU.
+    stored; on the GPU XLA lowers the scatter-add to atomic adds.
     """
     xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
     xyzw = jnp.stack([x_observer(wl) * wm, y_observer(wl) * wm,
@@ -58,29 +58,6 @@ def bin_scalar(px, py, w, Nx: int, Ny: int, extent) -> jnp.ndarray:
     img = jnp.zeros((Ny * Nx,), dtype=wm.dtype)
     img = img.at[flat].add(wm)
     return img.reshape(Ny, Nx)
-
-
-def bin_xyzw_sorted(px, py, w, wl, Nx: int, Ny: int, extent) -> jnp.ndarray:
-    """XYZW binning via sort + prefix-sum + boundary gather.
-
-    TPU alternative to the scatter-add in :func:`bin_xyzw`: XLA lowers
-    scatter to a serialized loop on TPU, while sort/cumsum/gather are fast
-    native ops. Identical result (up to f32 summation order).
-    """
-    xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
-    keys = yi * Nx + xi
-    xyzw = jnp.stack([x_observer(wl) * wm, y_observer(wl) * wm,
-                      z_observer(wl) * wm, wm], axis=-1)
-
-    order = jnp.argsort(keys)
-    ks = keys[order]
-    vs = xyzw[order]
-
-    csum = jnp.cumsum(vs, axis=0)
-    csum0 = jnp.concatenate([jnp.zeros((1, 4), csum.dtype), csum], axis=0)
-    edges = jnp.searchsorted(ks, jnp.arange(Ny * Nx + 1))
-    out = csum0[edges[1:]] - csum0[edges[:-1]]
-    return out.reshape(Ny, Nx, 4)
 
 
 def bin_xyzw_soft(px, py, w, wl, Nx: int, Ny: int, extent) -> jnp.ndarray:

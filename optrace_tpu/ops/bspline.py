@@ -1,6 +1,6 @@
 """Tensor-product B-spline evaluation in jnp.
 
-TPU-native replacement for the reference's scipy spline surfaces
+Device replacement for the reference's scipy spline surfaces
 (optrace/tracer/geometry/surface/data_surface_2d.py:60-126): the spline is
 fitted host-side with scipy (f64 coefficients), then evaluated *exactly*
 inside traced code with a vectorized de Boor basis — no dense-grid

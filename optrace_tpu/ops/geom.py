@@ -1,6 +1,6 @@
 """Ray-surface intersection kernels (functional core).
 
-TPU-native rebuild of the per-surface-type hit/normal/sag math in
+Rebuild of the per-surface-type hit/normal/sag math in
 ``optrace/tracer/geometry/surface/`` (SURVEY.md §2.4). Everything here is a
 pure, branchless jnp function over ray bundles, vectorized on the leading
 axis and jit/vmap/grad-safe:

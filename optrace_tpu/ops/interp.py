@@ -1,7 +1,7 @@
 """Fast interpolation primitives for per-ray hot paths.
 
-jnp.interp lowers to a binary search (searchsorted) plus gathers — ~50 ms
-per megaray per call on TPU. Every tabulated quantity in this package
+jnp.interp lowers to a binary search (searchsorted) plus gathers per
+value. Every tabulated quantity in this package
 (observers, illuminants, Data spectra/indices, resampled inverse CDFs)
 lives on a *uniform* grid, where interpolation is pure index arithmetic.
 """

@@ -1,6 +1,6 @@
 """Stateless Monte-Carlo samplers (threefry-keyed).
 
-TPU-native equivalent of reference ``optrace/tracer/random.py:1-160``. The
+Device equivalent of reference ``optrace/tracer/random.py:1-160``. The
 reference uses a module-global stateful ``np.random.Generator(SFC64)``; here
 every sampler is a pure function of a ``jax.random`` key, so traces are
 reproducible, shardable (fold the mesh shard index into the key) and
@@ -39,9 +39,8 @@ def _shuffle_permutation(key, N: int) -> jnp.ndarray:
     ray lay on a lattice — a polychromatic trace then correlated color with
     aim angle and skewed every chromatic image (the double-gauss PSF came
     out blue). ``jax.random.permutation`` is such a bijection but lowers to
-    a device SORT — ~25 ms per call at 10⁶ rays on TPU, and ray generation
-    shuffles up to six independent streams, which made SOURCE SAMPLING
-    dominate the 57-surface benchmark trace (253 ms of 387 ms at 1e6 rays).
+    a device SORT, and ray generation shuffles up to six independent
+    streams per call.
 
     Instead: a 4-round Feistel network over the next power-of-4 domain with
     xorshift-multiply round functions (murmur3-style mixing, round keys
@@ -114,8 +113,8 @@ def stratified_rectangle_sampling(key, N: int, x0, x1, y0, y1,
     # sample arrays through a permutation: jitter is iid per output slot,
     # so assigning slot i the grid cell perm(i) (or a plain uniform draw
     # for the N − n² remainder cells) gives the identical distribution
-    # with zero gathers — two 1M-element permutation gathers were ~16 ms
-    # of every ray-generation call on TPU.
+    # with zero gathers (instead of two N-element permutation gathers per
+    # ray-generation call).
     if shuffle and N > 1:
         pi = _shuffle_permutation(k4, N)
     else:

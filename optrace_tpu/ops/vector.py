@@ -1,13 +1,12 @@
 """Row-wise vector math on (..., 3) ray bundles.
 
-TPU-native equivalent of reference ``optrace/tracer/misc.py:94-169`` (rdot,
+Device equivalent of reference ``optrace/tracer/misc.py:94-169`` (rdot,
 cross, normalize, masked_assign) — pure functions over jnp arrays, shaped so
 XLA keeps the 3-vector axis in registers and vectorizes over the ray axis.
 
-Layout note: ray bundles are stored as (N, 3) arrays. On TPU the trailing
-dim of 3 is padded to a lane tile; the Pallas trace kernel instead uses a
-transposed (3, N) "planar" layout — these helpers work for both via
-broadcasting on the last axis argument.
+Layout note: ray bundles are stored as (N, 3) arrays; the helpers take
+the vector axis as an argument, so a transposed (3, N) "planar" layout
+works as well.
 """
 
 import jax.numpy as jnp

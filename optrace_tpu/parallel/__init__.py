@@ -1,4 +1,4 @@
-"""Sharded execution over TPU device meshes (SURVEY.md §2.10, §5).
+"""Sharded execution over device meshes (SURVEY.md §2.10, §5).
 
 The workload is embarrassingly parallel over rays; the only cross-shard
 reductions are detector-tile accumulation, spectrum histograms, warning

@@ -1,7 +1,7 @@
 """Sharded fused render: source sampling → trace → detector binning, with
 rays sharded over a mesh axis and detector XYZW tiles psum-merged.
 
-This is the TPU-native equivalent of the reference's thread-slice data
+This is the device-parallel equivalent of the reference's thread-slice data
 parallelism (raytracer.py:285-289) + per-channel binning threads
 (render_image.py:398-407), and the compute path used by iterative
 (megabatched) rendering at 10⁷–10⁸+ rays. Detector crossings are consumed
@@ -26,7 +26,6 @@ from ..tracer.trace_core import trace_bundle
 from ..tracer.detector import (detector_hits, build_segment_mask, init_hit_carry,
                                segment_update, sphere_projection_xy)
 from ..ops import binning
-from ..utils.global_options import global_options
 
 
 def default_mesh(axis_name: str = "rays") -> Mesh:
@@ -74,9 +73,6 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
             fx = filter_extent
             inside = (fx[0] <= x) & (x <= fx[1]) & (fx[2] <= y) & (y <= fx[3])
             wm = jnp.where(inside, wm, 0.0)
-        if global_options.pallas_binning:
-            from ..ops.pallas_binning import bin_xyzw_pallas
-            return bin_xyzw_pallas(x, y, wm, wl, Nx, Ny, ext)
         return binning.bin_xyzw(x, y, wm, wl, Nx, Ny, ext)
 
     return sink, finalize, ext, seg_mask

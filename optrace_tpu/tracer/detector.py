@@ -1,6 +1,6 @@
 """Detector intersection search over ray sections.
 
-TPU-native equivalent of reference ``raytracer.py:881-1051``: instead of a
+Device equivalent of reference ``raytracer.py:881-1051``: instead of a
 data-dependent per-ray advance loop, every ray tests each of its nt−1
 section segments against the detector surface in a static scan; the first
 segment whose hit lies before the next stored section wins. O(nt · N)

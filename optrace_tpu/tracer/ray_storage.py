@@ -5,7 +5,7 @@ Behavioral parity with reference ``optrace/tracer/ray_storage.py``
 pol_list, wl_list), source apportioning ∝ power, selective fetch with
 direction reconstruction, section/optical length utilities.
 
-TPU difference: the arrays are filled in one shot from the device trace
+Difference: the arrays are filled in one shot from the device trace
 output (there is no per-thread slice filling — sharding happens inside the
 jitted trace), and positions are f32 (device native) instead of f64.
 """

@@ -5,7 +5,7 @@ Behavioral parity with reference ``optrace/tracer/raytracer.py``
 sequential trace with INFOS warning counters, detector/source image and
 spectrum rendering, iterative (megabatched) rendering, focus search.
 
-TPU-native differences:
+Differences from the reference:
 - the trace is one jit-compiled pure function per scene snapshot (cached),
   rays generated on device from a PRNG key, no Python threads;
 - the detector hit search is a vectorized scan over stored ray sections on
@@ -470,7 +470,8 @@ class Raytracer(Group):
         # precision through the hit solve instead of downcasting to f32.
         # Runs on the CPU backend, where f64 is native: this is a
         # once-per-image host-API step over host-resident data (the fused
-        # streaming render never comes through here and stays f32 on TPU).
+        # streaming render never comes through here and stays f32 on the
+        # device).
         with jax.enable_x64(), jax.default_device(jax.devices("cpu")[0]):
             sfns = compile_surface(dsurf, dtype=np.float64)
             p_all = jnp.asarray(self.rays.p_list[Ns:Ne])

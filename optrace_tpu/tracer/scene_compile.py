@@ -1,6 +1,6 @@
 """Scene compilation: Surface objects → pure functional descriptors.
 
-The TPU trace is a jit-compiled pure function; this module extracts from
+The device trace is a jit-compiled pure function; this module extracts from
 each host-side Surface a (params, hit_fn, normal_fn, mask_fn) quadruple
 where ``params`` is a pytree of jnp arrays and the fns are closures over
 *static structure only*. Geometric quantities (positions, curvatures,
@@ -68,8 +68,8 @@ def _flat_normal_fn(params, x, y):
 def compile_surface(surf: Surface, dtype=np.float32) -> SurfaceFns:
     """Build the functional descriptor for a host-side surface object.
 
-    ``dtype`` selects the parameter precision: the default f32 is the TPU
-    path; f64 (under ``jax.enable_x64``) is the accuracy-oracle path used
+    ``dtype`` selects the parameter precision: the default f32 is the
+    device path; f64 (under ``jax.enable_x64``) is the accuracy-oracle path used
     by the error-budget tests (tests/test_accuracy.py).
     """
     def sc(v):

@@ -1,6 +1,6 @@
 """The surface-sequential trace as a pure jnp function.
 
-TPU-native rebuild of the reference hot loop
+Rebuild of the reference hot loop
 (optrace/tracer/raytracer.py:262-415 and the physics at :417-879,
 SURVEY.md §3.1): the Python-thread/slice parallelism becomes a single
 vectorized bundle (shardable over a mesh axis), the per-surface element
@@ -282,58 +282,18 @@ def _frame_chain(steps, dtype):
     return chain
 
 
-# step kinds only the whole-run Pallas kernel can execute inside a run
-# (the lax.scan fallback cannot: heterogeneous hit solves would burden
-# every scanned step)
-KERNEL_ONLY_KINDS = ("asphere", "tilted")
-# planar aperture shapes the kernel can absorb at (masked w-kill)
-APERTURE_KINDS = ("circle", "flat", "ring", "rect", "slit")
+# refract kinds the lax.scan body executes
+SCAN_KINDS = ("conic", "circle", "flat")
 
 
-def _kernel_only_step(st, use_hurb: bool) -> bool:
-    """Steps only the widened (kernel-bound) partition may place in a
-    run. Even aspheres always fuse (their unrolled fixed-iteration
-    Newton solve measured 3.7× slower than the in-kernel form); cheap
-    planar steps — tilted refractions and non-HURB aperture absorbers —
-    fuse only when ``global_options.pallas_fuse_planar`` asks for
-    single-launch tracing (measured slower at bulk ray counts, see the
-    option's docstring)."""
-    from ..utils.global_options import global_options
-    if st.action == "refract":
-        if st.sfns.kind == "asphere":
-            return True
-        return (st.sfns.kind == "tilted"
-                and global_options.pallas_fuse_planar)
-    if st.action == "absorb":
-        return (global_options.pallas_fuse_planar
-                and st.sfns.kind in APERTURE_KINDS
-                and not (use_hurb and st.hurb))
-    return False
-
-
-def _partition_runs(steps, sink_masks, allow_kernel_kinds=False,
-                    use_hurb=False):
+def _partition_runs(steps, sink_masks):
     """Split the step list into per-step segments and scannable
-    conic-refract runs (("step", [i]) / ("scan", [i..j]) entries).
-
-    ``allow_kernel_kinds``: widen the scannable steps to what only the
-    whole-run Pallas kernel can execute (even aspheres, tilted planes,
-    non-HURB aperture absorbers — ops/pallas_run.py handles them as
-    unrolled static steps); trace_bundle re-partitions such runs when
-    kernel eligibility fails at dispatch. Fusing the absorbers is what
-    keeps a stop-bearing system (virtually every real one) in a single
-    kernel launch."""
-    kinds = ("conic", "circle", "flat") + KERNEL_ONLY_KINDS \
-        if allow_kernel_kinds else ("conic", "circle", "flat")
-
+    conic-refract runs (("step", [i]) / ("scan", [i..j]) entries): runs of
+    at least MIN_SCAN_RUN consecutive conic/flat refractions whose
+    segments no sink consumes."""
     def scannable(i):
         st = steps[i]
-        if st.action == "refract" and st.sfns.kind in kinds:
-            pass
-        elif allow_kernel_kinds and _kernel_only_step(st, use_hurb) \
-                and st.action == "absorb":
-            pass
-        else:
+        if not (st.action == "refract" and st.sfns.kind in SCAN_KINDS):
             return False
         for m in sink_masks:
             if m is None or (i < len(m) and m[i]):
@@ -346,21 +306,10 @@ def _partition_runs(steps, sink_masks, allow_kernel_kinds=False,
             j = i
             while j < len(steps) and scannable(j):
                 j += 1
-            idxs = list(range(i, j))
-            # absorbers only pay their in-kernel cost when INTERIOR to a
-            # run (they glue refract steps into one launch); at the run
-            # edges they buy nothing — measured ~2% headline / ~7% pol
-            # loss from fusing the end absorber — so trim them back out
-            while idxs and steps[idxs[0]].action == "absorb":
-                runs.append(("step", [idxs.pop(0)]))
-            tail = []
-            while idxs and steps[idxs[-1]].action == "absorb":
-                tail.append(("step", [idxs.pop()]))
-            if len(idxs) >= MIN_SCAN_RUN:
-                runs.append(("scan", idxs))
+            if j - i >= MIN_SCAN_RUN:
+                runs.append(("scan", list(range(i, j))))
             else:
-                runs.extend(("step", [k]) for k in idxs)
-            runs.extend(reversed(tail))
+                runs.extend(("step", [k]) for k in range(i, j))
             i = j
             continue
         runs.append(("step", [i]))
@@ -368,22 +317,9 @@ def _partition_runs(steps, sink_masks, allow_kernel_kinds=False,
     return runs
 
 
-def _ambient_chain(steps, n0_fn):
-    """Per step, the ambient medium fn a ray is in when REACHING it (the
-    n2 chain of preceding refract/ideal steps; filters/absorbers leave
-    the ambient unchanged) — the n an absorber's stored section reports."""
-    out, cur = [], n0_fn
-    for st in steps:
-        out.append(cur)
-        if st.action in ("refract", "ideal"):
-            cur = st.n2_fn
-    return out
-
-
-def _media_rows(steps, scan_idxs, amb_fn_at=None):
+def _media_rows(steps, scan_idxs):
     """Unique media (by object identity) across all scanned steps.
-    Returns (media_fns, pairs) with pairs[step_idx] = (n1_row, n2_row);
-    absorb steps map both rows to the surrounding ambient medium."""
+    Returns (media_fns, pairs) with pairs[step_idx] = (n1_row, n2_row)."""
     media, rows, pairs = [], {}, {}
 
     def row(fn):
@@ -394,11 +330,7 @@ def _media_rows(steps, scan_idxs, amb_fn_at=None):
         return rows[k]
 
     for i in scan_idxs:
-        if steps[i].action == "absorb":
-            r = row(amb_fn_at[i])
-            pairs[i] = (r, r)
-        else:
-            pairs[i] = (row(steps[i].n1_fn), row(steps[i].n2_fn))
+        pairs[i] = (row(steps[i].n1_fn), row(steps[i].n2_fn))
     return media, pairs
 
 
@@ -415,12 +347,6 @@ def _conic_scan(steps, idxs, chain, outline64, n_tab, pairs,
     so it stays NaN-free in both passes, and ``where`` zeroes its
     cotangent.
     """
-    # kernel-only steps reach scan runs only via the widened partition;
-    # scanning one as a conic refraction would be silently wrong physics
-    assert all(steps[i].action == "refract"
-               and steps[i].sfns.kind not in KERNEL_ONLY_KINDS
-               for i in idxs), \
-        "kernel-only step in a lax.scan run (repartition missing)"
     dt = p.dtype
     one = jnp.asarray(np.asarray(1.0, dtype=dt))
     zero = jnp.asarray(np.asarray(0.0, dtype=dt))
@@ -514,186 +440,6 @@ def _conic_scan(steps, idxs, chain, outline64, n_tab, pairs,
 
 
 # ----------------------------------------------------------------------
-# whole-run Pallas dispatch (ops/pallas_run.py)
-
-def _is_concrete(v) -> bool:
-    """True for any non-traced value (python/numpy scalars, concrete jax
-    arrays) — embedding them as kernel constants cannot sever a gradient."""
-    return not isinstance(v, jax.core.Tracer)
-
-
-def _pallas_interpret() -> bool:
-    """CPU interpreter mode for the whole-run kernel (parity tests)."""
-    import os
-    return bool(os.environ.get("OPTRACE_TPU_PALLAS_INTERPRET"))
-
-
-def _diff_traced(*arrays) -> bool:
-    """True when any array is a differentiation tracer (jvp/linearize) —
-    ``pallas_call`` has no autodiff rules, so gradients w.r.t. values that
-    reach the kernel as OPERANDS (ray state from traced source parameters,
-    media rows from traced dispersion coefficients) must keep the XLA
-    scan. Surface-parameter tracers are caught separately because those
-    are embedded as kernel CONSTANTS (severing the gradient silently
-    rather than erroring)."""
-    from jax.interpreters import ad
-    from jax.interpreters import partial_eval as pe
-    types = [ad.JVPTracer, pe.JaxprTracer]
-    try:    # direct-linearization tracer (jax >= 0.4.34, not re-exported)
-        from jax._src.interpreters.ad import LinearizeTracer
-        types.append(LinearizeTracer)
-    except ImportError:     # pragma: no cover
-        pass
-    types = tuple(types)
-    return any(isinstance(a, types) for a in arrays if a is not None)
-
-
-def _pallas_run_eligible(steps, idxs, p, s=None, w=None, pols=None,
-                         n_tab=None) -> bool:
-    """The whole-run kernel applies to the f32 path (with or without
-    polarization transport) with concrete (non-traced) surface parameters
-    on a TPU backend; everything else keeps the XLA scan
-    (differentiable-design path, f64). OPTRACE_TPU_PALLAS_INTERPRET=1
-    additionally enables the CPU interpreter path for tests."""
-    from ..utils.global_options import global_options
-    if not global_options.pallas_trace or p.dtype != jnp.float32:
-        return False
-    if _diff_traced(p, s, w, pols, n_tab):
-        return False
-    try:
-        backend = jax.default_backend()
-    except Exception:   # pragma: no cover
-        return False
-    if backend != "tpu" and not _pallas_interpret():
-        return False
-    if _pallas_interpret() and getattr(jax.typeof(p), "vma", frozenset()):
-        # the interpreter decomposes the kernel into jax ops whose scalar
-        # index operands fail shard_map's vma checks; compiled TPU
-        # pallas_call is opaque and unaffected — interpret+shard_map
-        # (a test-only combination) keeps the XLA scan
-        return False
-    for i in idxs:
-        for key in ("pos", "rho", "k", "r", "z_min_rel", "z_max_rel",
-                    "coeff", "normal", "ri", "hw", "hh", "hwi", "hhi",
-                    "angle"):
-            v = steps[i].sfns.params.get(key)
-            if v is not None and not _is_concrete(v):
-                return False
-    return True
-
-
-def _repartition_without_kernel_kinds(steps, idxs, use_hurb=False):
-    """Fallback partition of a widened run whose kernel eligibility failed
-    at dispatch (e.g. diff-traced media discovered via n_tab): conic
-    sub-runs stay scannable, kernel-only steps (aspheres, tilted,
-    fused absorbers) unroll."""
-    out, buf = [], []
-
-    def flush():
-        if len(buf) >= MIN_SCAN_RUN:
-            out.append(("scan", list(buf)))
-        else:
-            out.extend(("step", [j]) for j in buf)
-        buf.clear()
-
-    for i in idxs:
-        if _kernel_only_step(steps[i], use_hurb):
-            flush()
-            out.append(("step", [i]))
-        else:
-            buf.append(i)
-    flush()
-    return out
-
-
-# Longest run per kernel launch: the in-kernel media block and stored-
-# section outputs scale linearly with L in VMEM (L=64 at TILE_ROWS=32 ≈
-# 3.3 MB media + 6.7 MB sections), so longer runs are chunked — the ray
-# state simply carries from one launch into the next.
-PALLAS_RUN_CHUNK = 64
-
-
-def _conic_run_pallas_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
-                               p, s, w, pols, no_pol, store_sections):
-    """Build the static per-step constants and media rows, call the
-    whole-run kernel (chunked to PALLAS_RUN_CHUNK steps per launch), and
-    reshape its outputs to the scan contract."""
-    from ..ops.pallas_run import conic_run_pallas
-
-    if len(idxs) > PALLAS_RUN_CHUNK:
-        # thread the state through the chunks sequentially
-        out_infos, out_p, out_w, out_pol = [], [], [], []
-        for i in range(0, len(idxs), PALLAS_RUN_CHUNK):
-            chunk = idxs[i:i + PALLAS_RUN_CHUNK]
-            p, s, w, pols, ri, rp, rw, rq = _conic_run_pallas_dispatch(
-                steps, chunk, chain, outline64, n_tab, pairs, p, s, w,
-                pols, no_pol, store_sections)
-            out_infos.append(ri)
-            if store_sections:
-                out_p.append(rp)
-                out_w.append(rw)
-                out_pol.append(rq)
-        infos = jnp.concatenate(out_infos, axis=0)
-        if not store_sections:
-            return p, s, w, pols, infos, None, None, None
-        return (p, s, w, pols, infos, jnp.concatenate(out_p, axis=0),
-                jnp.concatenate(out_w, axis=0),
-                None if no_pol else jnp.concatenate(out_pol, axis=0))
-
-    def f(v, default=0.0):
-        return float(np.asarray(v if v is not None else default).reshape(-1)[0])
-
-    consts = []
-    for i in idxs:
-        st = steps[i]
-        pr = st.sfns.params
-        pos_h, delta, origin = chain[i]
-        out_rel = tuple(float(outline64[q] - origin[q // 2]) for q in range(6))
-        is_asph = st.sfns.kind == "asphere"
-        is_tilt = st.sfns.kind == "tilted"
-        coeff = tuple(float(x) for x in np.asarray(pr["coeff"]).tolist()) \
-            if is_asph else ()
-        tn = tuple(float(x) for x in np.asarray(pr["normal"]).tolist()) \
-            if is_tilt else (0.0, 0.0, 1.0)
-        # aperture-mask shape for fused absorb steps ("circle" otherwise)
-        mask = st.sfns.kind if st.action == "absorb" \
-            and st.sfns.kind in ("ring", "rect", "slit") else "circle"
-        consts.append(tuple(sorted(dict(
-            rho=f(pr.get("rho"), 1.0), k=f(pr.get("k"), 0.0),
-            r=f(pr.get("r"), 1.0),
-            z_min=f(pr.get("z_min_rel"), 0.0), z_max=f(pr.get("z_max_rel"), 0.0),
-            is_flat=bool(st.sfns.is_flat), is_asph=is_asph, coeff=coeff,
-            is_tilt=is_tilt, tn=tn,
-            action=st.action, mask=mask,
-            ri=f(pr.get("ri"), 0.0), hw=f(pr.get("hw"), 1.0),
-            hh=f(pr.get("hh"), 1.0), hwi=f(pr.get("hwi"), 0.0),
-            hhi=f(pr.get("hhi"), 0.0), angle=f(pr.get("angle"), 0.0),
-            dx=float(delta[0]), dy=float(delta[1]), dz=float(delta[2]),
-            ox=float(origin[0]), oy=float(origin[1]), oz=float(origin[2]),
-            out=out_rel).items())))
-
-    idx_arr = jnp.asarray([[pairs[i][0], pairs[i][1]] for i in idxs],
-                          dtype=jnp.int32)
-    med = jnp.take(n_tab, idx_arr.reshape(-1), axis=0) \
-        .reshape(len(idxs), 2, n_tab.shape[1])
-
-    (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run_pallas(
-        p, s, w, med, None if no_pol else pols, consts=tuple(consts),
-        store=store_sections, interpret=_pallas_interpret())
-    if no_pol:
-        pols2 = pols
-
-    # per-step (N_INFOS,) rows from the kernel's (L, 4) counters
-    L = len(idxs)
-    run_infos = jnp.zeros((L, N_INFOS), dtype=jnp.int32)
-    run_infos = run_infos.at[:, ABSORB_MISSING].set(counts[:, 0])
-    run_infos = run_infos.at[:, TIR].set(counts[:, 1])
-    run_infos = run_infos.at[:, OUTLINE_INTERSECTION].set(counts[:, 2])
-    run_infos = run_infos.at[:, ILL_COND].set(counts[:, 3])
-    return p2, s2, w2, pols2, run_infos, ys_p, ys_w, ys_pol
-
-
-# ----------------------------------------------------------------------
 # the trace
 
 def trace_bundle(steps: list, n0_fn: Callable, outline,
@@ -722,7 +468,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     :return: dict with stacked per-section arrays p (N, nt, 3), w (N, nt),
              pols (N, nt, 3), n (N, nt) (if store_sections) and the INFOS
              counter matrix (N_INFOS, nt) — nt = len(steps) + 1 sections —
-             plus "sinks": final sink carries.
+             plus "s": the final directions and "sinks": final sink carries.
     """
     sections_p = [p]
     sections_w = [w]
@@ -739,67 +485,21 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     # O(eps·|z_absolute|) — see TraceStep.pos_host
     chain = _frame_chain(steps, p.dtype)
     sink_masks = [m for _, _, m in sink_list]
-    # widen scannable runs to the kernel-only steps (aspheres, tilted
-    # planes, non-HURB aperture absorbers) only when the whole-run
-    # kernel will take them (it unrolls per-step static constants, so a
-    # heterogeneous step costs only its own solve; the lax.scan fallback
-    # would pay it on EVERY scanned step). Fused absorbers keep a
-    # stop-bearing system in one kernel launch. Media tracers are not
-    # visible yet (n_tab below) — the per-run eligibility re-check plus
-    # _repartition_without_kernel_kinds handles that case.
-    light_idxs = [i for i, st in enumerate(steps)
-                  if st.action in ("refract", "absorb")]
-    allow_kernel_kinds = (
-        any(_kernel_only_step(steps[i], use_hurb) for i in light_idxs)
-        and _pallas_run_eligible(steps, light_idxs, p, s, w, pols, None))
-    runs = _partition_runs(steps, sink_masks,
-                           allow_kernel_kinds=allow_kernel_kinds,
-                           use_hurb=use_hurb)
+    runs = _partition_runs(steps, sink_masks)
 
     # shared media table for the scanned runs: one (M, N) row per unique
     # medium, gathered by index inside the scan bodies
     scan_idxs = [i for kind, idxs in runs if kind == "scan" for i in idxs]
     n_tab = None
     if scan_idxs:
-        media, pairs = _media_rows(steps, scan_idxs,
-                                   _ambient_chain(steps, n0_fn))
+        media, pairs = _media_rows(steps, scan_idxs)
         n_tab = jnp.stack([m(wl) for m in media])
 
     if key is None:
         key = jax.random.PRNGKey(0)
 
-    from collections import deque
-    work = deque(runs)
-    while work:
-        run_kind, run_idxs = work.popleft()
+    for run_kind, run_idxs in runs:
         if run_kind == "scan":
-            if not _pallas_run_eligible(steps, run_idxs, p, s, w, pols,
-                                        n_tab) \
-                    and any(_kernel_only_step(steps[i], use_hurb)
-                            for i in run_idxs):
-                # widened run, kernel refused at dispatch (e.g. traced
-                # media): conic sub-runs scan, kernel-only steps unroll
-                work.extendleft(reversed(
-                    _repartition_without_kernel_kinds(steps, run_idxs,
-                                                      use_hurb)))
-                continue
-            if _pallas_run_eligible(steps, run_idxs, p, s, w, pols, n_tab):
-                (p, s, w, pols, run_infos, run_p, run_w,
-                 run_pol) = _conic_run_pallas_dispatch(
-                    steps, run_idxs, chain, outline64, n_tab, pairs,
-                    p, s, w, pols, no_pol, store_sections)
-                L = len(run_idxs)
-                infos.extend(run_infos[i] for i in range(L))
-                if store_sections:
-                    sections_p.extend(run_p[i] for i in range(L))
-                    sections_w.extend(run_w[i] for i in range(L))
-                    if no_pol:      # pol untouched: reuse the source array
-                        sections_pol.extend([pols] * L)
-                    else:
-                        sections_pol.extend(run_pol[i] for i in range(L))
-                    sections_n.extend(n_tab[pairs[i][1]] for i in run_idxs)
-                n_amb_last = n_tab[pairs[run_idxs[-1]][1]]
-                continue
             (p, s, pols, w), ys = _conic_scan(steps, run_idxs, chain, outline64,
                                               n_tab, pairs, p, s, pols, w,
                                               no_pol, store_sections)
@@ -897,6 +597,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
 
     out = {
         "wl": wl,
+        "s": s,                              # final directions (N, 3)
         "infos": jnp.stack(infos, axis=1),   # (N_INFOS, nt)
         "sinks": carries,
     }

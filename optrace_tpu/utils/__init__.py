@@ -1,6 +1,6 @@
 """Infrastructure utilities: options, warnings, validation, progress.
 
-TPU-native rebuild of the reference L0 layer (see SURVEY.md §2.1;
+Rebuild of the reference L0 layer (see SURVEY.md §2.1;
 reference: optrace/global_options.py, optrace/warnings.py,
 optrace/property_checker.py, optrace/progress_bar.py).
 """

@@ -5,7 +5,7 @@ Behavioral parity with reference ``optrace/tracer/base_class.py:9-114``:
 mutation), deep ``copy()``, and a compact state representation used for
 change detection (the reference's ``crepr``).
 
-In the TPU build these objects are *host-side scene description only* — the
+In this package these objects are *host-side scene description only* — the
 traced computation consumes pytrees produced from them, so locking doubles
 as a guarantee that a compiled scene cannot drift from its description.
 """

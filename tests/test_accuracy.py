@@ -1,6 +1,6 @@
 """Long-system f32 accuracy validation (VERDICT #2).
 
-The TPU path traces in f32; the reference stores f64 because optical path
+The device path traces in f32; the reference stores f64 because optical path
 lengths accumulate (reference ray_storage.py:77-83). These tests quantify
 the f32 error against an f64 oracle — the same scene compiled with f64
 parameters under ``jax.enable_x64`` and fed the identical ray bundle — and
@@ -11,7 +11,7 @@ Measured on the real 57-surface microscope benchmark workload
 (tools/accuracy_probe.py, N=20k): median |Δxy| 1.3e-5 mm, p99 5.3e-5 mm at
 the retina — ~20× below a pixel. Both legs run eagerly: jit-vs-eager only
 changes fusion rounding, and op-by-op is the *upper bound* (fused fma is
-more accurate), so the budget holds a fortiori for the jitted TPU path.
+more accurate), so the budget holds a fortiori for the jitted device path.
 """
 
 import os

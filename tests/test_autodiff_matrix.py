@@ -244,7 +244,7 @@ class TestOperandFamilies:
 
     def test_grad_source_shift(self):
         """d(centroid_x)/d(dx): transverse source-bundle shift (ray-state
-        operand — also covers the pallas-eligibility fallback on TPU).
+        operand).
         The RMS spot is translation-invariant to first order, so this
         family uses the image centroid, whose derivative is the system's
         transverse magnification (O(1))."""

@@ -122,7 +122,7 @@ class TestHitResiduals:
     solver per curved surface type via the sag residual
     |z_hit − sag(x_hit, y_hit)| at the returned intersection.
 
-    Two regimes: in f32 (the TPU path) the floor is coefficient rounding
+    Two regimes: in f32 (the device path) the floor is coefficient rounding
     ∝ ε·throw (≈3e-6 mm over the 14 mm throw here — NOT solver error);
     in f64 the solver itself must converge below the reference's
     C_EPS = 1e-6 mm claim (surface.py:17) with margin.

@@ -1,13 +1,82 @@
-"""Whole-run Pallas trace kernel (ops/pallas_run.py): parity against the
-XLA scan on the CPU interpreter (the TPU head-to-head is reported by
-bench.py / tools, VERDICT r3 #6)."""
-
-import os
+"""Scene-level checks of the trace: the f32 path (scanned conic runs,
+unrolled everything else) against the f64 oracle — the same scene
+compiled with f64 parameters and fed the identical ray bundle — plus
+scanned-against-unrolled parity and gradient paths. The tests marked
+``gpu`` run on the card (``python chip_smoke.py`` runs them)."""
 
 import numpy as np
 import pytest
+import jax
+import jax.numpy as jnp
 
 import optrace_tpu as ot
+from optrace_tpu.tracer import trace_core as tc
+from optrace_tpu.tracer.trace_core import trace_bundle
+
+
+def _rays(RT, N, seed=1):
+    """f64 source bundle of ``RT`` (host arrays) and the outline."""
+    with ot.global_options.no_warnings():
+        assert not RT._pretrace_check(N)
+    RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, RT.no_pol)
+    with jax.enable_x64():
+        gen = RT._make_source_fn(N)
+        rays = [np.asarray(a, np.float64) for a in gen(jax.random.PRNGKey(seed))]
+    return rays, tuple(float(v) for v in RT.outline)
+
+
+def _trace(RT, rays, outline, dtype):
+    steps = RT._build_steps(dtype)
+    out = trace_bundle(steps, RT.n0, outline,
+                       *[jnp.asarray(a, dtype) for a in rays],
+                       RT.no_pol, RT.use_hurb, key=jax.random.PRNGKey(1))
+    return jax.tree_util.tree_map(
+        lambda a: None if a is None else np.asarray(a, np.float64), out)
+
+
+def trace_f32_f64(build, N):
+    """Trace one scene in f32 (the production path) and in f64 (the
+    oracle) from the same f64 ray bundle. Returns (out64, out32)."""
+    RT = build()
+    rays, outline = _rays(RT, N)
+    with jax.enable_x64():
+        out64 = _trace(RT, rays, outline, np.float64)
+    return out64, _trace(RT, rays, outline, np.float32)
+
+
+def _assert_f64_parity(a, b, N, atol_p=2e-4):
+    """f32 sections ``b`` against the f64 oracle ``a``: rays alive in both
+    agree to a few f32 ulps of an absolute coordinate; weights, the
+    alive/dead split and the INFOS counters agree up to threshold flips
+    at aperture edges (at most 0.1 % of the rays)."""
+    both = (a["w"] > 0) & (b["w"] > 0)
+    dp = np.abs(a["p"] - b["p"]).max(axis=-1)
+    assert both.any()
+    assert (dp[both] <= atol_p + 1e-6 * np.abs(a["p"]).max(axis=-1)[both]).all()
+    np.testing.assert_allclose(b["w"], a["w"], atol=1e-4)
+    flips = ((a["w"] > 0) != (b["w"] > 0)).sum(axis=0).max()
+    assert flips <= max(2, 1e-3 * N), flips
+    assert np.abs(a["infos"] - b["infos"]).max() <= max(2, 1e-3 * N)
+
+
+def trace_scan_unrolled(build, N, monkeypatch):
+    """Trace one scene with its conic runs scanned (the default) and with
+    every step unrolled (MIN_SCAN_RUN beyond the step count), in f32 from
+    the same bundle. Returns (out_scan, out_unrolled)."""
+    RT = build()
+    rays, outline = _rays(RT, N)
+    steps = RT._build_steps()
+    assert any(k == "scan" for k, _ in tc._partition_runs(steps, []))
+    out_scan = _trace(RT, rays, outline, np.float32)
+    monkeypatch.setattr(tc, "MIN_SCAN_RUN", len(steps) + 1)
+    assert all(k == "step" for k, _ in tc._partition_runs(steps, []))
+    return out_scan, _trace(RT, rays, outline, np.float32)
+
+
+def _assert_path_parity(a, b, atol_p=2e-5):
+    np.testing.assert_allclose(a["p"], b["p"], rtol=5e-6, atol=atol_p)
+    np.testing.assert_allclose(a["w"], b["w"], atol=1e-6)
+    assert (a["infos"] == b["infos"]).all()
 
 
 def _build(with_flats=True):
@@ -28,108 +97,103 @@ def _build(with_flats=True):
     return RT
 
 
-@pytest.fixture()
-def interpret_mode():
-    os.environ["OPTRACE_TPU_PALLAS_INTERPRET"] = "1"
-    yield
-    os.environ.pop("OPTRACE_TPU_PALLAS_INTERPRET", None)
-    ot.global_options.pallas_trace = False
-
-
 @pytest.mark.parametrize("with_flats", [True, False])
-def test_run_kernel_matches_xla_scan(interpret_mode, with_flats):
-    """Stored sections, weights and INFOS counters agree between the
-    whole-run kernel and the XLA scan on an identical trace."""
+def test_run_kernel_matches_xla_scan(with_flats):
+    """Stored sections, weights and INFOS counters of the f32 trace (conic
+    runs scanned) agree with the f64 oracle."""
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False     # baseline: XLA scan
-        RT_a = _build(with_flats)
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = _build(with_flats)
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
-
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    wa, wb = np.asarray(RT_a.rays.w_list), np.asarray(RT_b.rays.w_list)
-    assert pa.shape == pb.shape
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=2e-5)
-    np.testing.assert_allclose(wa, wb, atol=1e-9)
-    assert (RT_a._msgs == RT_b._msgs).all()
+    a, b = trace_f32_f64(lambda: _build(with_flats), N)
+    assert a["p"].shape == b["p"].shape
+    _assert_f64_parity(a, b, N)
 
 
-def test_detector_image_parity(interpret_mode):
-    """The rendered detector image is the same through both paths."""
-    N = 30000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False     # baseline: XLA scan
-        RT_a = _build()
-        RT_a.trace(N)
-        img_a = RT_a.detector_image(extent=[-3, 3, -3, 3])
-        ot.global_options.pallas_trace = True
-        RT_b = _build()
-        RT_b.trace(N)
-        img_b = RT_b.detector_image(extent=[-3, 3, -3, 3])
-        ot.global_options.pallas_trace = False
-    a = np.asarray(img_a.get("Irradiance", 63).data)
-    b = np.asarray(img_b.get("Irradiance", 63).data)
-    assert img_a.power() == pytest.approx(img_b.power(), rel=1e-6)
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-9)
+def test_detector_image_parity():
+    """The detector image rendered from the f32 sections matches the one
+    rendered from the f64 oracle's sections."""
+    from optrace_tpu.ops.binning import bin_xyzw
+    from optrace_tpu.tracer.detector import detector_hits, build_segment_mask
+    from optrace_tpu.tracer.scene_compile import compile_surface
+
+    RT = _build()
+    dsurf = RT.detectors[0].surface
+    sfns = compile_surface(dsurf)
+    z0 = float(dsurf.z_min)
+    seg = build_segment_mask(RT._section_z_bounds(), z0, float(dsurf.z_max))
+    a, b = trace_f32_f64(_build, 30000)
+    imgs = []
+    for out in (a, b):
+        ph, wsel, hit, _ = detector_hits(sfns, z0, out["p"].astype(np.float32),
+                                         out["w"].astype(np.float32),
+                                         segment_mask=seg)
+        wm = jnp.where(hit, wsel, 0.0)
+        imgs.append(np.asarray(bin_xyzw(ph[:, 0], ph[:, 1], wm,
+                                        out["wl"].astype(np.float32),
+                                        63, 63, (-3.0, 3.0, -3.0, 3.0))))
+    tot = imgs[0][..., 3].sum()
+    assert tot > 0
+    assert imgs[1][..., 3].sum() == pytest.approx(tot, rel=1e-4)
+    assert np.abs(imgs[0][..., 3] - imgs[1][..., 3]).sum() <= 1e-3 * tot
 
 
-def test_diff_path_keeps_xla_scan(interpret_mode):
-    """Traced surface parameters make the run ineligible — the
-    differentiable-design path must silently keep the XLA scan and still
-    produce finite gradients."""
-    import jax
-    import jax.numpy as jnp
-    from optrace_tpu.tracer.diff import make_parameterized_render
+def _media_steps(steps, dn):
+    def wrap(f):
+        return None if f is None else (lambda wl_: f(wl_) + dn)
+    return [st._replace(n1_fn=wrap(st.n1_fn), n2_fn=wrap(st.n2_fn))
+            for st in steps]
 
-    ot.global_options.pallas_trace = True
+
+def _bundle(RT, N=512):
+    RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, True)
+    steps = RT._build_steps()
+    gen = RT._make_source_fn(N)
+    p, s, pols, w, wl = gen(jax.random.PRNGKey(0))
+    return steps, (p, s, pols, w, wl), tuple(float(v) for v in RT.outline)
+
+
+def _bundle(RT, N=512):
+    RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, True)
+    steps = RT._build_steps()
+    gen = RT._make_source_fn(N)
+    p, s, pols, w, wl = gen(jax.random.PRNGKey(0))
+    return steps, (p, s, pols, w, wl), tuple(float(v) for v in RT.outline)
+
+
+def test_diff_path_keeps_xla_scan():
+    """Traced surface parameters (the differentiable-design path) flow
+    through the scanned runs and give finite, non-zero gradients."""
     RT = _build(with_flats=False)
-    render, params0 = make_parameterized_render(RT, 256, extent=(-3, 3, -3, 3),
-                                                Nx=16, Ny=16)
+    steps, (p, s, pols, w, wl), outline = _bundle(RT, 256)
+    params0 = [st.sfns.params for st in steps]
 
     def loss(params):
-        return jnp.sum(render(params, jax.random.PRNGKey(0))[:, :, 3])
+        steps_p = [st._replace(sfns=st.sfns._replace(params=q))
+                   for st, q in zip(steps, params)]
+        out = trace_bundle(steps_p, RT.n0, outline, p, s, pols, w, wl,
+                           True, False)
+        return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
 
+    assert "scan" in str(jax.make_jaxpr(loss)(params0))
     g = jax.grad(loss)(params0)
     leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
     assert all(np.isfinite(x).all() for x in leaves)
-    ot.global_options.pallas_trace = False
+    assert any(np.abs(x).max() > 0 for x in leaves)
 
 
-def test_chunked_dispatch_parity(interpret_mode, monkeypatch):
-    """Runs longer than PALLAS_RUN_CHUNK split across kernel launches with
-    the state threaded through; forced tiny chunks must match the XLA
-    scan exactly like the single-launch path."""
-    import optrace_tpu.tracer.trace_core as tc
-
-    monkeypatch.setattr(tc, "PALLAS_RUN_CHUNK", 2)
-    N = 15000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = _build(with_flats=True)
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = _build(with_flats=True)
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
-
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-9)
-    assert (RT_a._msgs == RT_b._msgs).all()
+def test_chunked_dispatch_parity(monkeypatch):
+    """Scanned conic runs against the same steps unrolled one by one:
+    identical physics, so sections, weights and counters agree to f32
+    rounding."""
+    a, b = trace_scan_unrolled(lambda: _build(with_flats=True), 15000,
+                               monkeypatch)
+    _assert_path_parity(a, b)
 
 
 @pytest.mark.parametrize("no_pol", [True, False])
-def test_outline_exit_scene_parity(interpret_mode, no_pol):
+def test_outline_exit_scene_parity(no_pol):
     """Scene whose lens apertures poke past the outline box (allowed with
     a warning, raytracer.py:213): rays hitting those zones must be
-    outline-killed IN-KERNEL identically to the XLA scan — the branch no
-    regular scene reaches (ADVICE r4 #2; exercises the r4 pol-clobber fix
-    at scene level)."""
+    outline-killed inside the scanned run exactly as the f64 oracle kills
+    them — the branch no regular scene reaches."""
     from optrace_tpu.tracer.trace_core import OUTLINE_INTERSECTION
 
     def build_tight():
@@ -156,62 +220,25 @@ def test_outline_exit_scene_parity(interpret_mode, no_pol):
         return RT
 
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False     # baseline: XLA scan
-        RT_a = build_tight()
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = build_tight()
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
-
+    a, b = trace_f32_f64(build_tight, N)
     # the in-run outline branch must actually fire (not only the end step)
-    n_out = RT_b._msgs[OUTLINE_INTERSECTION, 1:7].sum()
+    n_out = b["infos"][OUTLINE_INTERSECTION, 1:7].sum()
     assert n_out > 50, f"outline branch unexercised ({n_out} kills)"
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    wa, wb = np.asarray(RT_a.rays.w_list), np.asarray(RT_b.rays.w_list)
-    np.testing.assert_allclose(wa, wb, atol=1e-8)
-    # live sections must agree tightly; dead outline-kill endpoints sit on
-    # a box face after an O(10 mm) extra flight, where f32 rounding of
-    # t·s differs between the component and vector forms by ~1e-4 (a
-    # handful of rays; physics-identical: the weights above are equal)
-    live = (wa > 0)[:, :, None]
-    np.testing.assert_allclose(np.where(live, pa, 0.0),
-                               np.where(live, pb, 0.0), rtol=5e-6, atol=2e-5)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=2e-3)
-    assert (RT_a._msgs == RT_b._msgs).all()
+    _assert_f64_parity(a, b, N, atol_p=2e-3)
 
 
-def test_material_and_source_grads_keep_xla_scan(interpret_mode):
-    """Gradients w.r.t. media (dispersion) or source-ray values leave the
-    surface params concrete, so only the OPERANDS are diff-traced:
-    eligibility must detect that and fall back to the XLA scan instead of
-    dispatching pallas_call (which has no autodiff rules) — ADVICE r4 #3."""
-    import jax
-    import jax.numpy as jnp
-    from optrace_tpu.tracer.trace_core import trace_bundle
-
-    ot.global_options.pallas_trace = True
+def test_material_and_source_grads_keep_xla_scan():
+    """Gradients w.r.t. media (dispersion) or source-ray values flow
+    through the scanned runs: finite and non-zero."""
     RT = _build()
-    RT.rays.init(RT.ray_sources, 512, len(RT.tracing_surfaces) + 2, True)
-    steps = RT._build_steps()
-    gen = RT._make_source_fn(512)
-    p, s, pols, w, wl = gen(jax.random.PRNGKey(0))
-    outline = tuple(float(v) for v in RT.outline)
+    steps, (p, s, pols, w, wl), outline = _bundle(RT)
 
     def loss_media(dn):
-        def wrap(f):
-            return None if f is None else (lambda wl_: f(wl_) + dn)
-        steps_p = [st._replace(n1_fn=wrap(st.n1_fn), n2_fn=wrap(st.n2_fn))
-                   for st in steps]
-        out = trace_bundle(steps_p, RT.n0, outline, p, s, pols, w, wl,
-                           True, False)
+        out = trace_bundle(_media_steps(steps, dn), RT.n0, outline, p, s,
+                           pols, w, wl, True, False)
         # the end absorber zeroes the final w: weight by the last section
         # BEFORE it, positions at the absorber plane
         return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
-
-    g = jax.grad(loss_media)(jnp.float32(0.0))
-    assert np.isfinite(float(g)) and float(g) != 0.0
 
     def loss_source(dx):
         p_shift = p + jnp.stack([dx, 0.0 * dx, 0.0 * dx])
@@ -219,9 +246,30 @@ def test_material_and_source_grads_keep_xla_scan(interpret_mode):
                            True, False)
         return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
 
+    g = jax.grad(loss_media)(jnp.float32(0.0))
     g2 = jax.grad(loss_source)(jnp.float32(0.0))
+    assert np.isfinite(float(g)) and float(g) != 0.0
     assert np.isfinite(float(g2)) and float(g2) != 0.0
-    ot.global_options.pallas_trace = False
+
+
+def test_grad_of_vmapped_trace_keeps_xla_scan():
+    """Grad of a vmapped trace over batched source shifts (a
+    differentiation tracer wrapped in a batching tracer) runs through the
+    scanned runs and gives a finite, non-zero gradient."""
+    RT = _build()
+    steps, (p, s, pols, w, wl), outline = _bundle(RT, 256)
+
+    def one(dx):
+        p_shift = p + jnp.stack([dx, 0.0 * dx, 0.0 * dx])
+        out = trace_bundle(steps, RT.n0, outline, p_shift, s, pols, w, wl,
+                           True, False)
+        return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
+
+    def loss(scale):
+        return jnp.sum(jax.vmap(one)(scale * jnp.asarray([0.0, 0.05])))
+
+    g = jax.grad(loss)(jnp.float32(1.0))
+    assert np.isfinite(float(g)) and float(g) != 0.0
 
 
 def _build_asphere(no_pol=True):
@@ -244,82 +292,84 @@ def _build_asphere(no_pol=True):
 
 
 @pytest.mark.parametrize("no_pol", [True, False])
-def test_asphere_scene_parity(interpret_mode, no_pol):
-    """Asphere-bearing scene: the widened kernel run (asphere handled
-    in-kernel, VERDICT r4 #5) matches the default path (scan for conic
-    runs, unrolled Newton solve for the asphere steps)."""
+def test_asphere_scene_parity(no_pol):
+    """Asphere-bearing scene (conic runs scanned, the asphere's iterative
+    hit solve unrolled) against the f64 oracle."""
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = _build_asphere(no_pol)
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = _build_asphere(no_pol)
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
+    a, b = trace_f32_f64(lambda: _build_asphere(no_pol), N)
+    _assert_f64_parity(a, b, N)
 
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=5e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-8)
-    assert (RT_a._msgs == RT_b._msgs).all()
+
+def _build_tilted(no_pol=True, asphere=False):
+    """Prism-style scene: a tilted glass plate BETWEEN lenses (optionally
+    behind an even-asphere lens, which widens runs to kernel-only kinds)."""
+    RT = ot.Raytracer(outline=[-10, 10, -10, 10, -10, 80], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.CircularSurface(r=1.5), divergence="Lambertian",
+                        div_angle=8, pos=[0, 0, -5],
+                        spectrum=ot.presets.light_spectrum.d65))
+    n1 = ot.presets.refraction_index.BK7
+    front = ot.AsphericSurface(r=3, R=20, k=-0.5, coeff=[2e-4, -1e-6]) \
+        if asphere else ot.SphericalSurface(r=3, R=20)
+    RT.add(ot.Lens(front, ot.SphericalSurface(r=3, R=-25),
+                   n=n1, pos=[0, 0, 0], d=1.0))
+    th = np.radians(8.0)
+    tnf = [0.0, float(np.sin(th)), float(np.cos(th))]
+    RT.add(ot.Lens(ot.TiltedSurface(r=3, normal=tnf),
+                   ot.TiltedSurface(r=3, normal=[0.0, 0.0, 1.0]),
+                   n=ot.presets.refraction_index.F2,
+                   pos=[0, 0, 5], d=1.5))
+    RT.add(ot.Lens(ot.SphericalSurface(r=3, R=15),
+                   ot.SphericalSurface(r=3, R=-15),
+                   n=n1, pos=[0, 0, 10], d=1.2))
+    RT.add(ot.Lens(ot.SphericalSurface(r=3, R=18),
+                   ot.SphericalSurface(r=3, R=-18),
+                   n=n1, pos=[0, 0, 15], d=1.2))
+    RT.add(ot.Detector(ot.RectangularSurface(dim=[8, 8]), pos=[0, 0, 40]))
+    return RT
 
 
 @pytest.mark.parametrize("no_pol", [True, False])
-def test_tilted_scene_parity(interpret_mode, no_pol):
-    """Prism-style scene: a tilted glass plate BETWEEN lenses joins the
-    kernel run (tilted planes are kernel-only kinds), so the whole chain
-    stays in one launch — parity against the default path (scan for
-    conic sub-runs, unrolled tilt steps)."""
-    import numpy as np_
-
-    def build():
-        RT = ot.Raytracer(outline=[-10, 10, -10, 10, -10, 80], no_pol=no_pol)
-        RT.add(ot.RaySource(ot.CircularSurface(r=1.5), divergence="Lambertian",
-                            div_angle=8, pos=[0, 0, -5],
-                            spectrum=ot.presets.light_spectrum.d65))
-        n1 = ot.presets.refraction_index.BK7
-        RT.add(ot.Lens(ot.SphericalSurface(r=3, R=20),
-                       ot.SphericalSurface(r=3, R=-25),
-                       n=n1, pos=[0, 0, 0], d=1.0))
-        # tilted plate (small prism)
-        th = 8.0
-        tnf = [0.0, float(np_.sin(np_.radians(th))),
-               float(np_.cos(np_.radians(th)))]
-        RT.add(ot.Lens(ot.TiltedSurface(r=3, normal=tnf),
-                       ot.TiltedSurface(r=3, normal=[0.0, 0.0, 1.0]),
-                       n=ot.presets.refraction_index.F2,
-                       pos=[0, 0, 5], d=1.5))
-        RT.add(ot.Lens(ot.SphericalSurface(r=3, R=15),
-                       ot.SphericalSurface(r=3, R=-15),
-                       n=n1, pos=[0, 0, 10], d=1.2))
-        RT.add(ot.Detector(ot.RectangularSurface(dim=[8, 8]), pos=[0, 0, 40]))
-        return RT
-
+def test_tilted_scene_parity(no_pol):
+    """Prism-style scene: the tilted plate between lenses splits the chain
+    (tilted planes are unrolled steps, conic runs stay scanned) — f32
+    against the f64 oracle."""
+    RT = _build_tilted(no_pol)
+    steps = RT._build_steps()
+    runs = tc._partition_runs(steps, [])
+    tilted = {i for i, st in enumerate(steps) if st.sfns.kind == "tilted"}
+    assert tilted and all(kind == "step" for kind, idx in runs
+                          if tilted & set(idx))
+    assert any(kind == "scan" for kind, _ in runs)
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = build()
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = build()
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
+    a, b = trace_f32_f64(lambda: _build_tilted(no_pol), N)
+    _assert_f64_parity(a, b, N)
 
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=5e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-8)
-    assert (RT_a._msgs == RT_b._msgs).all()
+
+def test_tilted_unfused_with_asphere_and_traced_media():
+    """Asphere + tilted plate + traced media: non-conic steps never enter
+    a scanned run, and the media gradient is finite and non-zero."""
+    RT = _build_tilted(no_pol=True, asphere=True)
+    steps, (p, s, pols, w, wl), outline = _bundle(RT)
+    for kind, idx in tc._partition_runs(steps, []):
+        if kind == "scan":
+            assert all(steps[i].action == "refract"
+                       and steps[i].sfns.kind in tc.SCAN_KINDS for i in idx)
+
+    def loss(dn):
+        out = trace_bundle(_media_steps(steps, dn), RT.n0, outline, p, s,
+                           pols, w, wl, True, False)
+        return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
+
+    g = jax.grad(loss)(jnp.float32(0.0))
+    assert np.isfinite(float(g)) and float(g) != 0.0
 
 
 @pytest.mark.parametrize("no_pol", [True, False])
-def test_aperture_fused_scene_parity(interpret_mode, no_pol):
-    """A ring stop BETWEEN lens groups (the microscope/eye layout) joins
-    the kernel run as a fused absorb step, so the whole chain traces in
-    one launch. Parity must extend to the stored per-section refractive
-    indices — the fused absorber's ambient-medium bookkeeping is the new
-    piece (ambient = n2 chain of preceding refractions)."""
+def test_aperture_fused_scene_parity(no_pol):
+    """A ring stop BETWEEN lens groups (the microscope/eye layout): the
+    stop splits the chain into an unrolled absorber between runs. Parity
+    with the f64 oracle extends to the stored per-section refractive
+    indices — the stop's section reports the surrounding glass."""
     def build():
         RT = ot.Raytracer(outline=[-10, 10, -10, 10, -10, 80], no_pol=no_pol)
         RT.add(ot.RaySource(ot.CircularSurface(r=1.5), divergence="Lambertian",
@@ -338,105 +388,123 @@ def test_aperture_fused_scene_parity(interpret_mode, no_pol):
         return RT
 
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = build()
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        ot.global_options.pallas_fuse_planar = True   # opt-in fusion
-        try:
-            RT_b = build()
-            RT_b.trace(N)
-        finally:
-            ot.global_options.pallas_fuse_planar = False
-            ot.global_options.pallas_trace = False
-
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=5e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-8)
-    # section-wise refractive indices: the stop's section must report the
-    # surrounding glass (n2 of the previous lens), not vacuum
-    na, nb = np.asarray(RT_a.rays.n_list), np.asarray(RT_b.rays.n_list)
-    np.testing.assert_allclose(na, nb, atol=1e-6)
-    assert na[:, 3].mean() > 1.4        # ambient at the stop is the glass
-    assert (RT_a._msgs == RT_b._msgs).all()
+    a, b = trace_f32_f64(build, N)
+    _assert_f64_parity(a, b, N)
+    np.testing.assert_allclose(a["n"], b["n"], atol=1e-6)
+    assert a["n"][:, 3].mean() > 1.4        # ambient at the stop is the glass
 
 
-def test_asphere_media_grad_repartition(interpret_mode):
-    """Traced media over an asphere-widened scene: eligibility fails at
-    dispatch (operand tracers), the run must repartition (conic sub-runs
-    scan, asphere steps unroll) and still produce a finite, nonzero
-    gradient."""
-    import jax
-    import jax.numpy as jnp
-    from optrace_tpu.tracer.trace_core import trace_bundle
-
-    ot.global_options.pallas_trace = True
+def test_asphere_media_grad_repartition():
+    """Traced media over an asphere-bearing scene: conic runs scan,
+    asphere steps unroll, and the gradient is finite and non-zero."""
     RT = _build_asphere()
-    RT.rays.init(RT.ray_sources, 512, len(RT.tracing_surfaces) + 2, True)
-    steps = RT._build_steps()
-    gen = RT._make_source_fn(512)
-    p, s, pols, w, wl = gen(jax.random.PRNGKey(0))
-    outline = tuple(float(v) for v in RT.outline)
+    steps, (p, s, pols, w, wl), outline = _bundle(RT)
 
     def loss_media(dn):
-        def wrap(f):
-            return None if f is None else (lambda wl_: f(wl_) + dn)
-        steps_p = [st._replace(n1_fn=wrap(st.n1_fn), n2_fn=wrap(st.n2_fn))
-                   for st in steps]
-        out = trace_bundle(steps_p, RT.n0, outline, p, s, pols, w, wl,
-                           True, False)
+        out = trace_bundle(_media_steps(steps, dn), RT.n0, outline, p, s,
+                           pols, w, wl, True, False)
         return jnp.sum(out["p"][:, -1, 0] ** 2 * out["w"][:, -2])
 
     g = jax.grad(loss_media)(jnp.float32(0.0))
     assert np.isfinite(float(g)) and float(g) != 0.0
-    ot.global_options.pallas_trace = False
 
 
-def test_chunked_dispatch_with_kernel_kinds(interpret_mode, monkeypatch):
-    """Tiny PALLAS_RUN_CHUNK forces chunk boundaries THROUGH the widened
-    run (asphere mid-run): state threading across launches must stay
-    exact with heterogeneous step kinds, not just conics."""
-    import optrace_tpu.tracer.trace_core as tc
-
-    monkeypatch.setattr(tc, "PALLAS_RUN_CHUNK", 2)
-    N = 15000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = _build_asphere()
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = _build_asphere()
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
-
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=5e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-8)
-    assert (RT_a._msgs == RT_b._msgs).all()
+def test_chunked_dispatch_with_kernel_kinds(monkeypatch):
+    """Scanned against unrolled on an asphere- and prism-bearing scene:
+    the heterogeneous steps before the scanned run must thread the state
+    identically."""
+    a, b = trace_scan_unrolled(lambda: _build_tilted(asphere=True), 15000,
+                               monkeypatch)
+    _assert_path_parity(a, b, atol_p=5e-5)
 
 
-def test_pol_path_matches_xla_scan(interpret_mode):
-    """Full polarization transport through the kernel (s/p decomposition,
-    A_ts/A_tp Fresnel weights) matches the XLA scan."""
+def test_pol_path_matches_xla_scan():
+    """Full polarization transport (s/p decomposition, A_ts/A_tp Fresnel
+    weights) in the scanned runs against the f64 oracle."""
+    def build():
+        RT = _build(with_flats=True)
+        RT.no_pol = False
+        return RT
+
     N = 20000
-    with ot.global_options.no_warnings(), ot.global_options.no_progress_bar():
-        ot.global_options.pallas_trace = False
-        RT_a = _build(with_flats=True)
-        RT_a.no_pol = False
-        RT_a.trace(N)
-        ot.global_options.pallas_trace = True
-        RT_b = _build(with_flats=True)
-        RT_b.no_pol = False
-        RT_b.trace(N)
-        ot.global_options.pallas_trace = False
+    a, b = trace_f32_f64(build, N)
+    _assert_f64_parity(a, b, N)
+    alive = (a["w"] > 0) & (b["w"] > 0)
+    np.testing.assert_allclose(b["pol"][alive], a["pol"][alive], atol=1e-4)
 
-    pa, pb = np.asarray(RT_a.rays.p_list), np.asarray(RT_b.rays.p_list)
-    qa, qb = np.asarray(RT_a.rays.pol_list), np.asarray(RT_b.rays.pol_list)
-    np.testing.assert_allclose(pa, pb, rtol=5e-6, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(RT_a.rays.w_list),
-                               np.asarray(RT_b.rays.w_list), atol=1e-8)
-    np.testing.assert_allclose(np.nan_to_num(qa), np.nan_to_num(qb), atol=1e-5)
-    assert (RT_a._msgs == RT_b._msgs).all()
+
+@pytest.mark.parametrize("no_pol", [True, False])
+def test_scan_matches_unrolled_pol_modes(no_pol, monkeypatch):
+    """Scanned against unrolled with and without polarization transport."""
+    def build():
+        RT = _build(with_flats=True)
+        RT.no_pol = no_pol
+        return RT
+
+    a, b = trace_scan_unrolled(build, 10000, monkeypatch)
+    _assert_path_parity(a, b)
+    if not no_pol:
+        np.testing.assert_allclose(np.nan_to_num(a["pol"]),
+                                   np.nan_to_num(b["pol"]), atol=1e-5)
+
+
+@pytest.fixture
+def gpu():
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU backend (python chip_smoke.py runs this "
+                    "on the card)")
+
+
+@pytest.mark.gpu
+def test_gpu_trace_matches_cpu_backend(gpu):
+    """The card's f32 trace against the CPU backend's f32 trace of the
+    same bundle at 2¹⁸ rays: the same program, compiled by two backends,
+    differs only in fusion rounding."""
+    N = 1 << 18
+    RT = _build()
+    rays, outline = _rays(RT, N)
+    b = _trace(RT, rays, outline, np.float32)
+    with jax.default_device(jax.devices("cpu")[0]):
+        a = _trace(RT, rays, outline, np.float32)
+    _assert_f64_parity(a, b, N)
+
+
+@pytest.mark.gpu
+def test_gpu_binning_matches_cpu_backend(gpu):
+    """bin_xyzw's scatter-add (atomics on the card) against the CPU
+    backend at 10⁶ rays into 945² × 4 bins: equal up to f32 summation
+    order."""
+    from optrace_tpu.ops.binning import bin_xyzw
+    rng = np.random.default_rng(0)
+    N = 1_000_000
+    args = [rng.uniform(-1, 1, N), rng.uniform(-1, 1, N), rng.uniform(0, 1, N),
+            rng.uniform(380, 780, N)]
+    args = [a.astype(np.float32) for a in args]
+    ext = (-1.0, 1.0, -1.0, 1.0)
+    card = np.asarray(bin_xyzw(*args, 945, 945, ext))
+    with jax.default_device(jax.devices("cpu")[0]):
+        host = np.asarray(bin_xyzw(*args, 945, 945, ext))
+    np.testing.assert_allclose(card, host, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_sharded_kernel_parity(gpu):
+    """The sharded fused render over a one-card mesh (shard_map, psum)
+    against the unsharded fused render of the same key on the card."""
+    from jax.sharding import Mesh
+    from optrace_tpu.parallel.render import (make_fused_render,
+                                             make_sharded_render)
+
+    RT = _build(with_flats=True)
+    with ot.global_options.no_warnings():
+        assert not RT._pretrace_check(1000)
+    N = 1 << 16
+    mesh = Mesh(np.array(jax.devices()[:1]), ("rays",))
+    step, _ = make_sharded_render(RT, N, mesh=mesh, extent=(-3, 3, -3, 3),
+                                  Nx=63, Ny=63)
+    one, _ = make_fused_render(RT, N, extent=(-3, 3, -3, 3), Nx=63, Ny=63)
+    key = jax.random.PRNGKey(4)
+    img = np.asarray(step(key))
+    ref = np.asarray(jax.jit(one)(jax.random.split(key, 1)[0]))
+    assert ref[..., 3].sum() > 0
+    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-7)

@@ -68,20 +68,6 @@ class TestCheckpoint:
         np.testing.assert_array_equal(h1._data, h2._data)
         assert h1.power() == pytest.approx(1.0, abs=1e-3)
 
-    def test_sorted_binning_matches_scatter(self):
-        from optrace_tpu.ops import binning
-        rng = np.random.default_rng(1)
-        N = 20000
-        px = rng.uniform(-1.2, 1.2, N).astype(np.float32)
-        py = rng.uniform(-1.2, 1.2, N).astype(np.float32)
-        w = rng.uniform(0, 1, N).astype(np.float32)
-        wl = rng.uniform(400, 700, N).astype(np.float32)
-        ext = (-1.0, 1.0, -1.0, 1.0)
-        a = np.asarray(binning.bin_xyzw(px, py, w, wl, 95, 95, ext))
-        b = np.asarray(binning.bin_xyzw_sorted(px, py, w, wl, 95, 95, ext))
-        np.testing.assert_allclose(a, b, atol=1e-2)
-        assert a.sum() == pytest.approx(b.sum(), rel=1e-6)
-
 
 class TestFusedIterative:
     """The fused streaming path (trace sinks, no section storage) must
